@@ -7,8 +7,8 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
     g++ make zlib1g-dev wget tabix bcftools \
     && rm -rf /var/lib/apt/lists/*
 
-WORKDIR /opt/remixt-tpu
+WORKDIR /opt/remixt-jax
 COPY . .
 RUN pip install --no-cache-dir .
 
-ENTRYPOINT ["remixt-tpu"]
+ENTRYPOINT ["remixt-jax"]

@@ -17,7 +17,7 @@ import pandas as pd
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from remixt_tpu.io.hdf5 import HDFStore
+from remixt_jax.io.hdf5 import HDFStore
 
 
 SUMMARY_METRICS = {

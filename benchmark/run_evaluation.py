@@ -20,9 +20,9 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import remixt_tpu.simulations.pipeline
-import remixt_tpu.workflow
-from remixt_tpu.scheduler import Workflow
+import remixt_jax.simulations.pipeline
+import remixt_jax.workflow
+from remixt_jax.scheduler import Workflow
 
 
 def main():
@@ -46,7 +46,7 @@ def main():
     if args['config'] is not None:
         config = yaml.safe_load(open(args['config']))
 
-    sim_defs = remixt_tpu.simulations.pipeline.create_simulations(
+    sim_defs = remixt_jax.simulations.pipeline.create_simulations(
         args['sim_defs'], config, args['ref_data_dir'])
 
     os.makedirs(args['raw_data_dir'], exist_ok=True)
@@ -66,7 +66,7 @@ def main():
 
         workflow.transform(
             f'simulate_experiment_{sim_id}',
-            remixt_tpu.simulations.pipeline.simulate_experiment,
+            remixt_jax.simulations.pipeline.simulate_experiment,
             args=(experiment_file, experiment_plot_file, params),
             outputs=[experiment_file, experiment_plot_file],
         )
@@ -76,13 +76,13 @@ def main():
 
         workflow.subworkflow(
             f'fit_{sim_id}',
-            remixt_tpu.workflow.create_fit_model_workflow(
+            remixt_jax.workflow.create_fit_model_workflow(
                 experiment_file, results_file, config, args['ref_data_dir'],
                 os.path.join(sim_dir, 'fit')))
 
         workflow.transform(
             f'evaluate_{sim_id}',
-            remixt_tpu.simulations.pipeline.evaluate_results_task,
+            remixt_jax.simulations.pipeline.evaluate_results_task,
             args=(evaluation_file, results_file),
             kwargs={'experiment_filename': experiment_file},
             inputs=[results_file, experiment_file],
@@ -92,7 +92,7 @@ def main():
     if not args['simulate_only']:
         workflow.transform(
             'merge_evaluations',
-            remixt_tpu.simulations.pipeline.merge_evaluations,
+            remixt_jax.simulations.pipeline.merge_evaluations,
             args=(args['table'], sim_defs, evaluation_files, ['sim_id']),
             inputs=list(evaluation_files.values()),
             outputs=[args['table']],

@@ -18,10 +18,10 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import remixt_tpu.simulations.pipeline
-import remixt_tpu.simulations.workflow
-import remixt_tpu.wrappers
-from remixt_tpu.scheduler import Workflow
+import remixt_jax.simulations.pipeline
+import remixt_jax.simulations.workflow
+import remixt_jax.wrappers
+from remixt_jax.scheduler import Workflow
 
 
 def main():
@@ -33,7 +33,7 @@ def main():
     argparser.add_argument('raw_data_dir', help='Raw data directory')
     argparser.add_argument('table', help='Output table filename')
     argparser.add_argument('--tools', nargs='+', default=['remixt'],
-                           choices=list(remixt_tpu.wrappers.catalog.keys()))
+                           choices=list(remixt_jax.wrappers.catalog.keys()))
     argparser.add_argument('--config', required=False)
     argparser.add_argument('--maxjobs', type=int, default=1)
 
@@ -43,7 +43,7 @@ def main():
     if args['config'] is not None:
         config = yaml.safe_load(open(args['config']))
 
-    sim_defs = remixt_tpu.simulations.pipeline.create_simulations(
+    sim_defs = remixt_jax.simulations.pipeline.create_simulations(
         args['sim_defs'], config, args['ref_data_dir'])
 
     os.makedirs(args['raw_data_dir'], exist_ok=True)
@@ -62,13 +62,13 @@ def main():
 
         workflow.subworkflow(
             'simulate_{}'.format(sim_id),
-            remixt_tpu.simulations.workflow.create_read_simulation_workflow(
+            remixt_jax.simulations.workflow.create_read_simulation_workflow(
                 params, normal_file, tumour_file, mixture_file,
                 breakpoints_file, config, args['ref_data_dir'],
                 os.path.join(sim_dir, 'sim')))
 
         for tool_name in args['tools']:
-            tool = remixt_tpu.wrappers.catalog[tool_name](
+            tool = remixt_jax.wrappers.catalog[tool_name](
                 config, args['ref_data_dir'])
             results_file = os.path.join(
                 sim_dir, 'results_{}.h5'.format(tool_name))
@@ -85,7 +85,7 @@ def main():
 
             workflow.transform(
                 'evaluate_{}_{}'.format(tool_name, sim_id),
-                remixt_tpu.simulations.pipeline.evaluate_results_task,
+                remixt_jax.simulations.pipeline.evaluate_results_task,
                 args=(evaluation_file, results_file),
                 kwargs={'mixture_filename': mixture_file},
                 inputs=[results_file, mixture_file],
@@ -94,7 +94,7 @@ def main():
 
     workflow.transform(
         'merge_evaluations',
-        remixt_tpu.simulations.pipeline.merge_evaluations,
+        remixt_jax.simulations.pipeline.merge_evaluations,
         args=(args['table'], sim_defs, evaluation_files,
               ['sim_id', 'tool']),
         inputs=list(evaluation_files.values()),

@@ -16,7 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from remixt_tpu.utils import AutoSentinal
+from remixt_jax.utils import AutoSentinal
 
 
 def _run(command, cwd=None):
@@ -81,7 +81,7 @@ def main():
         print('=== installing {} ==='.format(tool), flush=True)
         INSTALLERS[tool](args.install_dir)
     print('done; point the benchmark config at the install locations '
-          '(see remixt_tpu/wrappers/wrapexternal.py docstring)')
+          '(see remixt_jax/wrappers/wrapexternal.py docstring)')
 
 
 if __name__ == '__main__':

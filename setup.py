@@ -1,7 +1,7 @@
-"""remixt-tpu packaging.
+"""remixt-jax packaging.
 
 Builds the native BAM allele reader shared library (src/bam_allele_reader.cpp)
-as part of the wheel; the compute path (JAX/XLA/Pallas) needs no compiled
+as part of the wheel; the compute path (JAX/XLA) needs no compiled
 extensions.
 """
 
@@ -18,7 +18,7 @@ class BuildNative(build_py):
     def run(self):
         here = os.path.dirname(os.path.abspath(__file__))
         src = os.path.join(here, 'src', 'bam_allele_reader.cpp')
-        out_dir = os.path.join(here, 'remixt_tpu', 'io', '_native')
+        out_dir = os.path.join(here, 'remixt_jax', 'io', '_native')
         os.makedirs(out_dir, exist_ok=True)
         out = os.path.join(out_dir, 'libbamallele.so')
         subprocess.check_call([
@@ -27,16 +27,16 @@ class BuildNative(build_py):
 
 
 setup(
-    name='remixt-tpu',
+    name='remixt-jax',
     version='0.1.0',
-    description=('TPU-native joint inference of clone-specific segment and '
+    description=('JAX joint inference of clone-specific segment and '
                  'breakpoint copy number from tumour WGS data'),
-    packages=find_packages(include=['remixt_tpu', 'remixt_tpu.*']),
-    package_data={'remixt_tpu.io': ['_native/libbamallele.so']},
+    packages=find_packages(include=['remixt_jax', 'remixt_jax.*']),
+    package_data={'remixt_jax.io': ['_native/libbamallele.so']},
     cmdclass={'build_py': BuildNative},
     entry_points={
         'console_scripts': [
-            'remixt-tpu = remixt_tpu.ui.main:main',
+            'remixt-jax = remixt_jax.ui.main:main',
         ],
     },
     install_requires=[

@@ -1,4 +1,4 @@
-// TPU-era native BAM allele reader.
+// Native BAM allele reader.
 //
 // Streams one chromosome of a coordinate-sorted indexed BAM, pairs mates
 // into concordant fragments, and classifies reads covering known SNP
@@ -11,7 +11,7 @@
 // Implementation is self-contained: BGZF block inflation via zlib, BAM
 // record parsing, and BAI linear-index seek (the reference relied on the
 // vendored bamtools submodule, absent from its snapshot). Exposed through a
-// plain C API consumed by ctypes (remixt_tpu/io/bamreader.py).
+// plain C API consumed by ctypes (remixt_jax/io/bamreader.py).
 
 #include <algorithm>
 #include <cstdint>

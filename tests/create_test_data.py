@@ -11,7 +11,7 @@ import sys
 
 import numpy as np
 
-import remixt_tpu.simulations.genome as sim_genome
+import remixt_jax.simulations.genome as sim_genome
 
 
 def create_test_experiment(filename, N=5000, M=3, seed=2014):

@@ -6,8 +6,8 @@ oracles on tiny chains, randomized data, seeded generators.
 
 import numpy as np
 
-from remixt_tpu.models import states as states_mod
-from remixt_tpu.models.oracle import OracleModel
+from remixt_jax.models import states as states_mod
+from remixt_jax.models.oracle import OracleModel
 
 
 def make_problem(seed=0, N=6, M=2, cn_max=2, num_breakpoints=1,
@@ -120,3 +120,82 @@ def brute_force_chain(framelogprob, log_transmat):
             joints[n, seq[n], seq[n + 1]] += p
 
     return log_norm, marginals, joints, np.array(best_seq)
+
+
+def build_chain_problem(seed, chain_lengths, S=7, num_static=5, be_frac=0.25):
+    """Random chain-batched forward-backward problem in the engine's bank
+    layout: ``bank[0]`` is the zero cut matrix, ``num_static`` shared
+    matrices, then one matrix per breakend pair. Returns numpy arrays."""
+    rng = np.random.RandomState(seed)
+    chain_lengths = np.asarray(chain_lengths)
+    Q = len(chain_lengths)
+    L = int(chain_lengths.max())
+    N = int(chain_lengths.sum())
+
+    framelogprob = -5.0 * rng.rand(N, S)
+
+    # transition banks: log-weights <= 0, bank[0] = zero cut matrix
+    static_bank = -3.0 * rng.rand(num_static, S, S)
+    static_bank[0] = 0.0
+
+    # chain layout: segments numbered consecutively chain by chain
+    chain_seg_map = np.full((Q, L), N, dtype=np.int32)
+    offset = 0
+    for q, length in enumerate(chain_lengths):
+        chain_seg_map[q, :length] = np.arange(offset, offset + length)
+        offset += length
+
+    # per-pair bank indices: mostly static classes, a sample of breakends
+    chain_bank_idx = np.zeros((Q, max(L - 1, 1)), dtype=np.int32)
+    be_positions = []
+    for q, length in enumerate(chain_lengths):
+        for t in range(length - 1):
+            if rng.rand() < be_frac:
+                be_positions.append((q, t))
+            else:
+                chain_bank_idx[q, t] = rng.randint(num_static)
+    J = len(be_positions)
+    be_bank = -3.0 * rng.rand(max(J, 1), S, S)
+    for j, (q, t) in enumerate(be_positions):
+        chain_bank_idx[q, t] = num_static + j
+
+    return dict(
+        framelogprob=framelogprob,
+        static_bank=static_bank,
+        be_bank=be_bank,
+        full_bank=np.concatenate([static_bank, be_bank[:J]], axis=0),
+        chain_bank_idx=chain_bank_idx,
+        chain_seg_map=chain_seg_map,
+        chain_last=(chain_lengths - 1).astype(np.int32),
+        N=N,
+        num_breakends=J,
+    )
+
+
+def dense_chain_forward_backward(framelogprob, full_bank, chain_bank_idx,
+                                 chain_seg_map, chain_last):
+    """Plain float64 numpy forward-backward, one chain at a time, with
+    each pair's (S, S) log-weight matrix taken from the bank.
+
+    Returns (alphas (N, S), betas (N, S), log_norm summed over chains)."""
+    from scipy.special import logsumexp
+
+    alphas = np.zeros_like(framelogprob)
+    betas = np.zeros_like(framelogprob)
+    log_norm = 0.0
+    for q in range(chain_seg_map.shape[0]):
+        n = int(chain_last[q]) + 1
+        segs = chain_seg_map[q, :n]
+        tmats = full_bank[chain_bank_idx[q, :n - 1]]
+        f = framelogprob[segs]
+        a = np.zeros((n, f.shape[1]))
+        b = np.zeros((n, f.shape[1]))
+        a[0] = f[0]
+        for t in range(1, n):
+            a[t] = logsumexp(a[t - 1][:, None] + tmats[t - 1], axis=0) + f[t]
+        for t in range(n - 2, -1, -1):
+            b[t] = logsumexp(tmats[t] + (f[t + 1] + b[t + 1])[None, :], axis=1)
+        alphas[segs] = a
+        betas[segs] = b
+        log_norm += logsumexp(a[-1])
+    return alphas, betas, log_norm

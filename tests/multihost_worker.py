@@ -20,7 +20,7 @@ def main():
     import jax
     jax.config.update('jax_enable_x64', True)
 
-    from remixt_tpu.parallel import distributed
+    from remixt_jax.parallel import distributed
     distributed.initialize(
         coordinator_address='localhost:{}'.format(port),
         num_processes=num_processes, process_id=process_id)
@@ -34,8 +34,8 @@ def main():
     import functools
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from remixt_tpu.models import engine as eng
-    from remixt_tpu.parallel import restarts as par
+    from remixt_jax.models import engine as eng
+    from remixt_jax.parallel import restarts as par
 
     sys.path.insert(0, 'tests')
     from helpers import make_problem

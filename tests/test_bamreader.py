@@ -96,7 +96,7 @@ def make_pair(name, pos1, pos2, read_len, mapq=60, seq1=None, seq2=None,
 
 def build_reader(tmp_path, read_dicts, snps=None, max_fragment_length=1000,
                  max_soft_clipped=8, check_proper_pair=True):
-    import remixt_tpu.io.bamreader as bamreader
+    import remixt_jax.io.bamreader as bamreader
 
     read_dicts = sorted(read_dicts, key=lambda r: r['pos'])
     records = [bam_record(refid=0, cigar=r.get('cigar'), **{
@@ -244,7 +244,7 @@ def test_batched_reads(tmp_path):
 
 def test_create_chromosome_seqdata(tmp_path):
     """BAM -> seqdata store integration (seqdataio.create_chromosome_seqdata)."""
-    import remixt_tpu.seqdataio as seqdataio
+    import remixt_jax.seqdataio as seqdataio
 
     reads = []
     for i in range(10):

@@ -9,8 +9,8 @@ import pandas as pd
 import pytest
 import yaml
 
-from remixt_tpu.scheduler import Workflow
-from remixt_tpu.simulations import simple as sim
+from remixt_jax.scheduler import Workflow
+from remixt_jax.simulations import simple as sim
 from test_pipeline import make_tables
 
 
@@ -50,8 +50,8 @@ def cli_results(tmp_path_factory):
 
     results_file = str(tmp / 'results.h5')
 
-    import remixt_tpu.ui.fit
-    remixt_tpu.ui.fit.fit(
+    import remixt_jax.ui.fit
+    remixt_jax.ui.fit.fit(
         count_file=count_file,
         breakpoint_file=breakpoint_file,
         results_file=results_file,
@@ -68,8 +68,8 @@ def test_fit_cli_results_exist(cli_results):
 
 def test_write_results_cli(cli_results):
     tmp = cli_results['tmp']
-    import remixt_tpu.ui.write_results
-    remixt_tpu.ui.write_results.write_results_tables(
+    import remixt_jax.ui.write_results
+    remixt_jax.ui.write_results.write_results_tables(
         results_filename=cli_results['results_file'],
         cn_filename=str(tmp / 'cn.tsv'),
         brk_cn_filename=str(tmp / 'brk_cn.tsv'),
@@ -86,10 +86,10 @@ def test_write_results_cli(cli_results):
 
 def test_plot_results_cli(cli_results):
     tmp = cli_results['tmp']
-    import remixt_tpu.ui.plot_results
+    import remixt_jax.ui.plot_results
     for plot_type in ['raw', 'scatter', 'depth']:
         plot_file = str(tmp / f'plot_{plot_type}.png')
-        remixt_tpu.ui.plot_results.create_plot(
+        remixt_jax.ui.plot_results.create_plot(
             results=cli_results['results_file'],
             plot_file=plot_file,
             plot_type=plot_type,
@@ -99,12 +99,12 @@ def test_plot_results_cli(cli_results):
 
 def test_visualize_solutions_cli(cli_results):
     tmp = cli_results['tmp']
-    import remixt_tpu.ui.visualize_solutions
+    import remixt_jax.ui.visualize_solutions
     html_file = str(tmp / 'solutions.html')
-    remixt_tpu.ui.visualize_solutions.create_visualization(
+    remixt_jax.ui.visualize_solutions.create_visualization(
         results=cli_results['results_file'], html=html_file)
     html = open(html_file).read()
-    assert 'remixt-tpu solutions' in html
+    assert 'remixt-jax solutions' in html
     assert 'major_raw' in html
     # the read-depth density panel (reference solutions view,
     # visualize.py:469-530) embeds its curves when the store carries
@@ -114,8 +114,8 @@ def test_visualize_solutions_cli(cli_results):
 
 
 def test_main_parser():
-    import remixt_tpu.ui.main  # importable; subcommands registered
-    assert hasattr(remixt_tpu.ui.main, 'main')
+    import remixt_jax.ui.main  # importable; subcommands registered
+    assert hasattr(remixt_jax.ui.main, 'main')
 
 
 # -- scheduler ---------------------------------------------------------------
@@ -214,3 +214,39 @@ def test_scheduler_parallel(tmp_path):
                  inputs=outs, outputs=[merged])
     wf.run(str(tmp_path / 'work'), max_jobs=3)
     assert open(merged).read() == '0123'
+
+
+def _record_span(path, seconds):
+    import time
+    start = time.time()
+    time.sleep(seconds)
+    _write_file(path, '{} {} {}'.format(os.getpid(), start, time.time()))
+
+
+def test_scheduler_runs_device_tasks_one_at_a_time(tmp_path):
+    """Device tasks queue in one worker process (a second process on the
+    card would fail for want of memory); host tasks keep the pool."""
+    wf = Workflow('device')
+    spans = {}
+    for kind, n in (('device', 3), ('host', 3)):
+        for i in range(n):
+            path = str(tmp_path / f'{kind}{i}.txt')
+            spans[(kind, i)] = path
+            wf.transform(f'{kind}_{i}', _record_span, args=(path, 0.3),
+                         outputs=[path], uses_device=(kind == 'device'))
+    wf.run(str(tmp_path / 'work'), max_jobs=4)
+
+    def read(path):
+        pid, start, end = open(path).read().split()
+        return int(pid), float(start), float(end)
+
+    device = sorted(read(p) for (kind, _), p in spans.items()
+                    if kind == 'device')
+    host = [read(p) for (kind, _), p in spans.items() if kind == 'host']
+    assert len({pid for pid, _, _ in device}) == 1
+    for (_, _, end), (_, start, _) in zip(
+            sorted(device, key=lambda s: s[1]),
+            sorted(device, key=lambda s: s[1])[1:]):
+        assert end <= start
+    assert device[0][0] not in {pid for pid, _, _ in host}
+    assert os.getpid() not in {pid for pid, _, _ in device + host}

@@ -1,16 +1,16 @@
 """JAX engine vs float64 numpy oracle: field-by-field numerical parity.
 
 The engine must reproduce the oracle (and hence the reference semantics) to
-near machine precision in float64. This is the core bit-equivalence gate for
-the TPU build (BASELINE.md north star: posterior max-abs-diff).
+near machine precision in float64. This is the core numerical gate for the
+engine (posterior max-abs-diff).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from remixt_tpu.models.oracle import OracleModel
-from remixt_tpu.models import engine as eng
+from remixt_jax.models.oracle import OracleModel
+from remixt_jax.models import engine as eng
 from helpers import make_problem
 
 
@@ -104,34 +104,6 @@ def test_expected_log_likelihood_and_grad(case):
     np.testing.assert_allclose(
         np.asarray(grad), oracle.calculate_expected_log_likelihood_partial_h(sample),
         rtol=1e-7, atol=1e-9)
-
-
-def test_update_p_breakpoint_restarts_matches_vmapped():
-    """The dedicated restart-batched breakpoint update (consuming the
-    junction-major exp bank, engine.update_p_breakpoint_restarts) must
-    reproduce the per-restart update — the grouped Pallas sweep path
-    routes q(brk) through it while the scan path vmaps the scalar one."""
-    import jax
-    from remixt_tpu.parallel.restarts import stack_pytrees
-
-    _, spec, params, state = build_pair(
-        seed=5, N=14, M=2, cn_max=2, num_breakpoints=3)
-    states = []
-    for scale in (1.02, 0.97, 1.11):
-        s = spec.sweep(params._replace(h=params.h * scale), state)
-        states.append(s)
-    state_b = stack_pytrees(states)
-    params_b = stack_pytrees(
-        [params._replace(h=params.h * scale) for scale in (1.02, 0.97, 1.11)])
-
-    ref = jax.vmap(lambda p, s: eng.update_p_breakpoint(spec, p, s))(
-        params_b, state_b)
-    plan_sp = spec.pallas_plan['Sp']
-    be_exp_b = eng._restart_exp_bank(spec, state_b, {'Sp': plan_sp})
-    got = eng.update_p_breakpoint_restarts(spec, state_b, be_exp_b)
-    np.testing.assert_allclose(
-        np.asarray(got.p_breakpoint), np.asarray(ref.p_breakpoint),
-        atol=1e-12)
 
 
 @pytest.mark.parametrize('case', CASES)

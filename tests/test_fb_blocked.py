@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from remixt_tpu.ops import fb_blocked, fb_scan
-from test_fb_pallas import build_problem
+from remixt_jax.ops import fb_blocked, fb_scan
+from helpers import build_chain_problem
 
 
 def random_single_chain(seed, N, S=6, num_bank=4):
@@ -45,9 +45,9 @@ def test_chains_blocked_matches_chain_batched(B):
     chain end, adding a per-chain scalar that cancels in every normalized
     consumer — see fb_scan.forward_backward_chains docstring), so the
     posterior marginals must agree exactly."""
-    problem = build_problem(7, [19, 8, 3, 26], S=6, be_frac=0.3)
-    frame = problem['framelogprob'].astype(jnp.float64)
-    bank = problem['full_bank'].astype(jnp.float64)
+    problem = build_chain_problem(7, [19, 8, 3, 26], S=6, be_frac=0.3)
+    frame = jnp.asarray(problem['framelogprob'])
+    bank = jnp.asarray(problem['full_bank'])
 
     a_ref, b_ref, ln_ref = fb_scan.forward_backward_chains(
         frame, bank, problem['chain_bank_idx'], problem['chain_seg_map'],

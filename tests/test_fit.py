@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from remixt_tpu.models.fit import BreakpointModel, decode_breakpoints_naive
-from remixt_tpu.simulations import simple as sim
+from remixt_jax.models.fit import BreakpointModel, decode_breakpoints_naive
+from remixt_jax.simulations import simple as sim
 
 
 def cn_matches(cn, truth):
@@ -173,7 +173,7 @@ def test_h_update_paths_agree(sim_data):
     """The fused in-graph backtracking h update and the scipy L-BFGS-B path
     must land on equivalent optima (same subsample objective; both guarded
     by the full-data accept/reject)."""
-    from remixt_tpu.models import em as em_mod
+    from remixt_jax.models import em as em_mod
 
     data = sim_data
     model = make_model(data)
@@ -212,7 +212,7 @@ def test_param_sample_weights_all_matches_per_name(sim_data):
     computation (cn_model.py:309-352 semantics): the M-step subsample
     draws consume these through the host RNG, so any drift changes the
     fit trajectory."""
-    from remixt_tpu.models import em as em_mod
+    from remixt_jax.models import em as em_mod
 
     data = sim_data
     model = make_model(data)
@@ -253,7 +253,7 @@ def test_batched_chunks_padded_to_uniform_shape():
     The uniform shape is what lets every chunk reuse chunk 1's compiled
     program and is the guard against the grouped kernel's shape-specific
     device faults (docs/DESIGN.md: R=10 bench / R=4 tail-chunk faults)."""
-    from remixt_tpu.models.fit_batched import fit_restarts_batched
+    from remixt_jax.models.fit_batched import fit_restarts_batched
 
     data = sim.simulate_experiment(
         N=36, M=3, h=(0.08, 0.05, 0.025), cn_max=2, num_events=4,

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import scipy.stats
 
-from remixt_tpu import likelihood as lik
+from remixt_jax import likelihood as lik
 
 
 RNG = np.random.RandomState(0)
@@ -132,7 +132,7 @@ def test_lgamma_shift_f32_accuracy():
     the round-3 outlier-posterior plateau — see ACCURACY.json / DESIGN.md)."""
     import jax.numpy as jnp
     from scipy.special import gammaln
-    from remixt_tpu.ops.special import lgamma_shift, LGAMMA_SHIFT_MIN_N
+    from remixt_jax.ops.special import lgamma_shift, LGAMMA_SHIFT_MIN_N
 
     n = np.concatenate([
         np.array([0.0, 1.0, 5.0, 100.0, 255.0, 256.0, 257.0]),

@@ -9,7 +9,7 @@ ELBO-monotonicity-per-update invariant (test_model.py:392-399).
 import numpy as np
 import pytest
 
-from remixt_tpu.models import oracle as oracle_mod
+from remixt_jax.models import oracle as oracle_mod
 from helpers import make_oracle, make_problem, brute_force_chain
 
 

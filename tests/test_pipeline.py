@@ -9,10 +9,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from remixt_tpu.analysis.experiment import Experiment
-from remixt_tpu.analysis import pipeline
-from remixt_tpu.io.hdf5 import HDFStore
-from remixt_tpu.simulations import simple as sim
+from remixt_jax.analysis.experiment import Experiment
+from remixt_jax.analysis import pipeline
+from remixt_jax.io.hdf5 import HDFStore
+from remixt_jax.simulations import simple as sim
 
 
 def make_tables(data, segment_length=5e5):
@@ -331,7 +331,7 @@ def test_candidate_h_robust_normal_anchor():
     also tried as normal anchors (VERDICT r4 item 5 — measured on the
     low-tumour benchmark, where the reference's smallest-mode rule fails
     two of three replicates)."""
-    import remixt_tpu.analysis.readdepth as rd
+    import remixt_jax.analysis.readdepth as rd
 
     # true normal at 0.056, true tumour offset 0.024; spurious 1.3%-mass
     # cluster at 0.038 (the low_tumour_0_1 failure shape)
@@ -359,3 +359,16 @@ def test_candidate_h_robust_normal_anchor():
         dup_modes, mode_masses=np.array([0.5, 0.5]),
         normal_mass_tolerance=0.05)
     assert len(dup) == 2  # (0.056, 0.024) and (0.056, 0.012) only
+
+
+@pytest.mark.parametrize('elbo,prop,expected', [
+    # highest ELBO among restarts under the divergence cut
+    ([-5., -1., -3.], [0.1, 0.9, 0.2], 'c'),
+    # none passes the cut: highest ELBO overall
+    ([-5., -1., -3.], [0.9, 0.9, 0.9], 'b'),
+    # ties go to the first restart; NaN ELBOs never win
+    ([-2., -2., np.nan], [0.1, 0.1, 0.1], 'a'),
+])
+def test_optimal_init_id(elbo, prop, expected):
+    assert pipeline.optimal_init_id(['a', 'b', 'c'], elbo, prop, 0.5) \
+        == expected

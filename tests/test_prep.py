@@ -9,11 +9,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import remixt_tpu.seqdataio as seqdataio
-import remixt_tpu.analysis.segment as segment_mod
-import remixt_tpu.analysis.haplotype as haplotype_mod
-import remixt_tpu.analysis.stats as stats_mod
-import remixt_tpu.analysis.gcbias as gcbias_mod
+import remixt_jax.seqdataio as seqdataio
+import remixt_jax.analysis.segment as segment_mod
+import remixt_jax.analysis.haplotype as haplotype_mod
+import remixt_jax.analysis.stats as stats_mod
+import remixt_jax.analysis.gcbias as gcbias_mod
 
 
 @pytest.fixture
@@ -337,7 +337,7 @@ def test_gc_curve_table_matches_predict(tmp_path):
 
 def test_mappability_bedgraph_roundtrip(tmp_path):
     """Synthetic SAM -> bedgraph -> merged store -> indicator array."""
-    import remixt_tpu.mappability.tasks as map_tasks
+    import remixt_jax.mappability.tasks as map_tasks
 
     sam = str(tmp_path / 'aln.sam')
     rows = [
@@ -373,7 +373,7 @@ def test_mappability_bedgraph_roundtrip(tmp_path):
 
 
 def test_split_file_byline(tmp_path):
-    import remixt_tpu.mappability.tasks as map_tasks
+    import remixt_jax.mappability.tasks as map_tasks
 
     src = str(tmp_path / 'in.txt')
     with open(src, 'w') as f:

@@ -5,7 +5,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from remixt_tpu import segalg
+from remixt_jax import segalg
 
 
 def random_nonoverlapping(rng, n, max_gap=10, max_len=20):
@@ -126,7 +126,7 @@ def test_aggregate_adjacent():
 
 def test_breakpoint_database_fuzzy_query():
     import pandas as pd
-    from remixt_tpu.utils import BreakpointDatabase
+    from remixt_jax.utils import BreakpointDatabase
 
     table = pd.DataFrame({
         'prediction_id': ['a', 'b'],
@@ -158,7 +158,7 @@ def test_breakpoint_database_fuzzy_query():
 
 def test_match_breakpoints_fuzzy():
     import pandas as pd
-    from remixt_tpu.analysis.breakpoints import match_breakpoints
+    from remixt_jax.analysis.breakpoints import match_breakpoints
 
     def bp_table(rows):
         return pd.DataFrame(rows, columns=[

@@ -10,9 +10,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import remixt_tpu.seqdataio as seqdataio
-import remixt_tpu.simulations.genome as sim_genome
-import remixt_tpu.simulations.seqread as seqread
+import remixt_jax.seqdataio as seqdataio
+import remixt_jax.simulations.genome as sim_genome
+import remixt_jax.simulations.seqread as seqread
 
 
 PARAMS = {

@@ -9,8 +9,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import remixt_tpu.simulations.genome as sim_genome
-import remixt_tpu.simulations.pipeline as sim_pipeline
+import remixt_jax.simulations.genome as sim_genome
+import remixt_jax.simulations.pipeline as sim_pipeline
 
 
 GENOME_PARAMS = dict(
@@ -128,7 +128,7 @@ def test_sim_id_is_stable_digest(tmp_path):
 def test_germline_alleles_string_roundtrip(tmp_path, monkeypatch):
     """String columns (ref/alt/nt_*) must survive the h5py store, which has
     no native object-dtype support."""
-    import remixt_tpu.simulations.haplotype as sim_hap
+    import remixt_jax.simulations.haplotype as sim_hap
 
     table = pd.DataFrame({
         'position': [100, 200, 300],

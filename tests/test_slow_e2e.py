@@ -14,9 +14,9 @@ Run with: python -m pytest tests/ -m slow  (about 10-20 min on CPU)
 import numpy as np
 import pytest
 
-import remixt_tpu.analysis.pipeline as pipeline_mod
-import remixt_tpu.simulations.genome as sim_genome
-import remixt_tpu.simulations.pipeline as sim_pipeline
+import remixt_jax.analysis.pipeline as pipeline_mod
+import remixt_jax.simulations.genome as sim_genome
+import remixt_jax.simulations.pipeline as sim_pipeline
 
 
 pytestmark = pytest.mark.slow

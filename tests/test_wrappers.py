@@ -11,8 +11,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import remixt_tpu.seqdataio as seqdataio
-from remixt_tpu.wrappers import formats, wrapclonehd, wraptheta, wraptitan
+import remixt_jax.seqdataio as seqdataio
+from remixt_jax.wrappers import formats, wrapclonehd, wraptheta, wraptitan
 
 
 @pytest.fixture()
@@ -187,7 +187,7 @@ def test_external_workflow_tasks_are_picklable(tmp_path, monkeypatch):
     every external-tool workflow must survive pickling (max_jobs > 1)."""
     import pickle
 
-    from remixt_tpu.wrappers import wrapexternal
+    from remixt_jax.wrappers import wrapexternal
 
     # chromosome_lengths() needs a genome FAI on disk; the value itself is
     # a plain dict and irrelevant to picklability
@@ -211,7 +211,7 @@ def test_external_workflow_tasks_are_picklable(tmp_path, monkeypatch):
 
 
 def test_remixt_wrapper_rejects_multiple_tumours(tmp_path):
-    from remixt_tpu.wrappers import wrapremixt
+    from remixt_jax.wrappers import wrapremixt
 
     tool = wrapremixt.ReMixTTool({}, str(tmp_path))
     with pytest.raises(ValueError, match='exactly one tumour'):

@@ -9,7 +9,7 @@ Stages (each sentinel-gated and resumable):
                  mappability from the reference's S3 bucket
                  (/root/reference/README.md:190-207), and build the chr15
                  reference dataset (ensembl FASTA, 1000G panel, maps).
-  2. run       — the full remixt-tpu pipeline: extract counts, phase
+  2. run       — the full remixt-jax pipeline: extract counts, phase
                  haplotypes (shapeit4), GC bias, fit, collate.
   3. compare   — when --reference-results points at a results HDF5
                  produced by the ORIGINAL ReMixT on the same inputs,
@@ -53,35 +53,35 @@ def check_network():
 
 
 def download(work_dir):
-    import remixt_tpu.utils
+    import remixt_jax.utils
 
     for rel in DATA_FILES:
         target = os.path.join(work_dir, os.path.basename(rel))
         if not os.path.exists(target):
-            remixt_tpu.utils.wget('{}/{}'.format(S3_BASE, rel), target)
+            remixt_jax.utils.wget('{}/{}'.format(S3_BASE, rel), target)
 
     ref_dir = os.path.join(work_dir, 'ref_data')
     os.makedirs(ref_dir, exist_ok=True)
     mappability = os.path.join(ref_dir, 'hg19.100.bwa.mappability.h5')
     if not os.path.exists(mappability):
-        remixt_tpu.utils.wget(
+        remixt_jax.utils.wget(
             '{}/hg19.100.bwa.mappability.h5'.format(S3_BASE), mappability)
 
     import yaml
-    import remixt_tpu.ref_data
+    import remixt_jax.ref_data
     with open(EXAMPLE_CONFIG) as f:
         config = yaml.safe_load(f)
-    remixt_tpu.ref_data.create_ref_data(config, ref_dir)
+    remixt_jax.ref_data.create_ref_data(config, ref_dir)
     return ref_dir, config
 
 
 def run_pipeline(work_dir, ref_dir, config):
-    import remixt_tpu.workflow
+    import remixt_jax.workflow
 
     results = os.path.join(work_dir, 'results.h5')
     if os.path.exists(results):
         return results
-    workflow = remixt_tpu.workflow.create_remixt_bam_workflow(
+    workflow = remixt_jax.workflow.create_remixt_bam_workflow(
         os.path.join(work_dir, 'HCC1395_breakpoints.tsv'),
         {'HCC1395': os.path.join(work_dir, 'HCC1395_chr15_grch38.bam'),
          'HCC1395BL': os.path.join(work_dir, 'HCC1395BL_chr15_grch38.bam')},
@@ -93,7 +93,7 @@ def run_pipeline(work_dir, ref_dir, config):
 
 
 def _optimal_cn(results_filename):
-    from remixt_tpu.io.hdf5 import HDFStore
+    from remixt_jax.io.hdf5 import HDFStore
     with HDFStore(results_filename, 'r') as store:
         return store['/cn'], store['/mix']
 

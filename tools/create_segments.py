@@ -8,7 +8,7 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import remixt_tpu.analysis.segment
+import remixt_jax.analysis.segment
 
 
 if __name__ == '__main__':
@@ -23,6 +23,6 @@ if __name__ == '__main__':
     if args.config is not None:
         config = yaml.safe_load(open(args.config))
 
-    remixt_tpu.analysis.segment.create_segments(
+    remixt_jax.analysis.segment.create_segments(
         args.segment_filename, config, args.ref_data_dir,
         breakpoint_filename=args.breakpoint_filename)

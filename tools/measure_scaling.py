@@ -2,11 +2,10 @@
 
 Runs the restart-batched whole-genome sweep on nested sub-meshes of the
 available devices (1, 2, 4, ... up to all) and records segments/s for
-each, writing SCALING.json.  On a multi-chip host or pod this produces
-the BASELINE.md scaling table (1 chip / 1 host / N hosts); on the
-single-chip dev environment it degenerates to the 1-chip row (the virtual
-CPU mesh shares host cores, so CPU "scaling" numbers are not meaningful
-and are labelled as such).
+each, writing SCALING.json.  On a multi-card host this gives the
+scaling table; on a one-device host it degenerates to the one-device row
+(a virtual CPU mesh shares host cores, so CPU "scaling" numbers are not
+meaningful and are labelled as such).
 
 Usage:  python tools/measure_scaling.py [--restarts R] [--n N]
 """
@@ -28,8 +27,8 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def measure(num_devices, num_restarts, N, num_events, iters=5):
     import jax
     from jax.sharding import Mesh
-    from remixt_tpu.parallel import restarts as par
-    from remixt_tpu.models import engine as eng
+    from remixt_jax.parallel import restarts as par
+    from remixt_jax.models import engine as eng
 
     sys.path.insert(0, os.path.join(REPO_ROOT, 'tools'))
     from accuracy_gate import make_problem

@@ -1,6 +1,6 @@
 """Engine profiler: capture a JAX profiler trace of whole-genome sweeps.
 
-The TPU-era replacement for the reference's print-based timing
+The replacement for the reference's print-based timing
 (cn_model.py:423-442) and disabled Cython profiling hooks — produces a
 TensorBoard-loadable trace of the variational sweep for kernel-level
 inspection.
@@ -24,7 +24,7 @@ def main():
     argparser.add_argument('--iters', type=int, default=5)
     argparser.add_argument('--restarts', type=int, default=0,
                            help='trace the restart-batched sweep instead')
-    argparser.add_argument('--outdir', default='/tmp/remixt_tpu_trace')
+    argparser.add_argument('--outdir', default='/tmp/remixt_jax_trace')
     args = argparser.parse_args()
 
     import functools
@@ -35,8 +35,8 @@ def main():
     spec, params, state, _ = build_problem(args.n, args.events)
 
     if args.restarts:
-        from remixt_tpu.parallel import restarts as par
-        from remixt_tpu.models import engine as eng
+        from remixt_jax.parallel import restarts as par
+        from remixt_jax.models import engine as eng
         R = args.restarts
         rng = np.random.RandomState(0)
         params = par.stack_pytrees([

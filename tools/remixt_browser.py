@@ -11,8 +11,8 @@ import matplotlib.pyplot as plt
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import remixt_tpu.cn_plot
-from remixt_tpu.io.hdf5 import HDFStore
+import remixt_jax.cn_plot
+from remixt_jax.io.hdf5 import HDFStore
 
 
 class Browser(object):
@@ -41,7 +41,7 @@ class Browser(object):
         row = self.stats[self.stats['init_id'] == solution_id].iloc[0]
 
         self.ax.clear()
-        remixt_tpu.cn_plot.plot_cnv_genome(
+        remixt_jax.cn_plot.plot_cnv_genome(
             self.ax, cn, major_col='major_raw', minor_col='minor_raw',
             maxcopies=6)
         self.ax.set_title(

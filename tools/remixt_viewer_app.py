@@ -13,7 +13,7 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import remixt_tpu.visualize
+import remixt_jax.visualize
 
 
 if __name__ == '__main__':
@@ -22,9 +22,9 @@ if __name__ == '__main__':
     argparser.add_argument('--port', type=int, default=8000)
     args = argparser.parse_args()
 
-    serve_dir = tempfile.mkdtemp(prefix='remixt_tpu_viewer_')
+    serve_dir = tempfile.mkdtemp(prefix='remixt_jax_viewer_')
     html = os.path.join(serve_dir, 'index.html')
-    remixt_tpu.visualize.create_solutions_visualization(args.results, html)
+    remixt_jax.visualize.create_solutions_visualization(args.results, html)
 
     os.chdir(serve_dir)
     print(f'serving {html} at http://localhost:{args.port}/')

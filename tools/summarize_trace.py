@@ -6,7 +6,7 @@ prints a table of the heaviest ops with their memory-bandwidth and
 boundedness columns — the attribution step of the measure-first loop.
 
 Usage:
-    python tools/summarize_trace.py /tmp/remixt_tpu_trace [--top 30]
+    python tools/summarize_trace.py /tmp/remixt_jax_trace [--top 30]
 """
 
 import argparse

@@ -1,4 +1,4 @@
-"""Per-component wall-clock budget of one VI sweep on the real TPU.
+"""Per-component wall-clock budget of one VI sweep on the accelerator.
 
 Two modes:
 
@@ -7,17 +7,14 @@ Two modes:
   buckets HLO device time by the engine's ``sweep_*`` named scopes —
   emissions, allele swap, breakend bank, chain update, q(brk), outlier
   updates. Components sum to the measured fused block cost by
-  construction, fixing the round-3 gap where standalone dispatches ran
-  4x the fused per-sweep cost. Writes SWEEP_BUDGET.json.
+  construction. Writes SWEEP_BUDGET.json.
 
 --standalone: times each jitted piece as its own dispatch. Standalone
   dispatches pay forced output layouts and per-call overhead the fused
   blocks don't, so these are upper bounds useful only for RELATIVE
-  comparison between runs of the same shape (at R=12 the single-sweep
-  jit compiles a pathological ~140 ms select fusion the 5-sweep scan
-  block does not exhibit).
+  comparison between runs of the same shape.
 
-Usage (TPU host):
+Usage (on the GPU):
     python tools/sweep_budget.py [--n 6000] [--events 300] [--restarts 8]
     python tools/sweep_budget.py --standalone [...]
 """
@@ -33,6 +30,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+
+from remixt_jax import accelerator  # noqa: E402
 
 
 def timeit(fn, *args, iters=10, warmup=2):
@@ -81,8 +80,8 @@ def trace_attribution(spec, params, state, R, num_sweeps=5, iters=5):
     component (the engine's named scopes)."""
     import tempfile
     import jax
-    from remixt_tpu.models import engine as eng
-    from remixt_tpu.parallel import restarts as par
+    from remixt_jax.models import engine as eng
+    from remixt_jax.parallel import restarts as par
 
     if R > 0:
         rng = np.random.RandomState(0)
@@ -130,12 +129,10 @@ def trace_attribution(spec, params, state, R, num_sweeps=5, iters=5):
     scale = 1e-3 / iters
     out = {'N': spec.N, 'S': spec.S, 'K': spec.K, 'J': spec.J,
            'Q': spec.Q, 'L': spec.L, 'restarts': R,
-           'use_pallas': bool(spec.use_pallas),
+           'device': accelerator.describe(),
            'mode': 'trace',
            'num_sweeps_per_block': num_sweeps,
            'block_wall_ms': round(wall_block_ms, 3),
-           # with self-time bucketing block_device_ms lands within a few
-           # percent of block_wall_ms (measured 148.8 vs 151.7 at R=8)
            'block_device_ms': round(device_total * scale, 3),
            'per_sweep_device_ms': round(
                device_total * scale / num_sweeps, 3)}
@@ -166,7 +163,7 @@ def main():
 
     import jax
     from bench import build_problem
-    from remixt_tpu.models import engine as eng
+    from remixt_jax.models import engine as eng
 
     spec, params, state, _ = build_problem(args.n, args.events)
     R = args.restarts
@@ -181,7 +178,7 @@ def main():
         return
 
     if R > 0:
-        from remixt_tpu.parallel import restarts as par
+        from remixt_jax.parallel import restarts as par
         rng = np.random.RandomState(0)
         params = par.stack_pytrees([
             params._replace(h=params.h * (1.0 + 0.2 * rng.rand()))
@@ -204,8 +201,7 @@ def main():
                 eng.update_p_cn_restarts, spec)),
                 (params, state, ll_tot, ll_alle)),
             'be_bank': (jax.jit(lambda s: jax.vmap(
-                lambda pb: eng.breakend_tmats_exp(
-                    spec, pb, pad_S=eng._sweep_exp_bank_pad(spec)))(
+                lambda pb: eng.breakend_tmats_exp(spec, pb))(
                 s.p_breakpoint)), (state,)),
             'p_breakpoint': (jax.jit(vm(eng.update_p_breakpoint)),
                              (params, state)),
@@ -229,8 +225,7 @@ def main():
                 eng.update_p_cn, spec)),
                 (params, state, ll_tot, ll_alle)),
             'be_bank': (jax.jit(lambda s: eng.breakend_tmats_exp(
-                spec, s.p_breakpoint,
-                pad_S=eng._sweep_exp_bank_pad(spec))), (state,)),
+                spec, s.p_breakpoint)), (state,)),
             'p_breakpoint': (jax.jit(functools.partial(
                 eng.update_p_breakpoint, spec)), (params, state)),
             'p_outlier_total': (jax.jit(functools.partial(
@@ -244,7 +239,7 @@ def main():
 
     out = {'N': spec.N, 'S': spec.S, 'K': spec.K, 'J': spec.J,
            'Q': spec.Q, 'L': spec.L, 'restarts': R,
-           'use_pallas': bool(spec.use_pallas),
+           'device': accelerator.describe(),
            'mode': 'standalone_upper_bounds'}
     for name, (fn, fargs) in pieces.items():
         print('timing', name, '...', file=sys.stderr, flush=True)
