@@ -21,7 +21,8 @@ Phases:
      sweeps of one wave on both, compared within the bounds below
 
 ``--four-cards`` runs, each against its one-card result: the R=24 grid on
-a 4-device restart mesh; a cohort of 4 samples, one per card
+a 4-device restart mesh, after one EM iteration (per restart) and after
+the full fit (warm); a cohort of 4 samples, one per card
 (fit_many_cohort), each the simulated whole genome fitted from its own
 wave of restarts; and one chain blocked over the 4 devices.
 
@@ -351,23 +352,32 @@ def phase_reference(sample, grid, config, wave, device_spec, num_sweeps=2):
 # four cards
 # ---------------------------------------------------------------------------
 
-# Four cards against one. On the CPU the sharded fit is bit-identical to
-# the one-device fit. On the card it is not even run to run: the
-# scatter-adds of the q(brk) update accumulate in no fixed order, and
-# the four-card programs are compiled apart from the one-card ones. The
-# M-step then draws its parameter subsamples with probabilities taken
-# from the posteriors (as the reference does), so a float32 difference
-# can change a draw and move a restart's h by a few percent: between one
-# H100 and four (400 W) the 24 restarts' h differed by 3.2e-2 relative
-# at the median and 0.26 at most. The four-card paths are therefore held
-# to what a user gets, the chosen solution:
-#  - the same restart is chosen;
-#  - its decoded copy number agrees on 99% of segments (one card vs
-#    four read 100% for the grid and for each cohort sample);
-#  - its h agrees within 1e-1 relative (read 2.3e-2 for the grid, at
-#    most 1.2e-3 for a cohort sample against the same programs on one
-#    card); a wrong restart or swapped clones moves h by far more.
-# Per-restart differences are printed, not bounded.
+# Four cards against one. One H100 fitting the R=24 grid twice in one
+# process gives its own noise floor:
+#  - the first 5-sweep block is bit-identical run to run;
+#  - the EM updates are not: XLA runs some of their reductions in no fixed
+#    order (with --xla_gpu_deterministic_ops=true the whole fit repeats
+#    bit for bit, at 2.6x the time), and the argmax over backtracking
+#    scales and the accept/reject steps turn float32 noise into whole
+#    steps: after one EM iteration h differed by up to 6.0e-2 relative,
+#    after five by up to 0.17 (median 2.4e-2), with decoded copy number
+#    equal on 88% of segments at the worst restart.
+# The four-card programs are compiled for two restarts per card rather
+# than a wave of eight, so they also round differently. Hence:
+#  - per restart, the posteriors of the first sweep block, before any EM
+#    update, agree within the card-vs-CPU bounds above (float32 rounding
+#    of other programs; a restart fitted with another's inputs differs by
+#    O(1));
+FIRST_BLOCK_BOUNDS = (POSTERIOR_ABS_BOUND, POSTERIOR_MEAN_ABS_BOUND,
+                      ARGMAX_DISAGREEMENT_BOUND)
+#  - per restart after the full fit, h agrees within 0.5 relative, about
+#    twice the largest reading (0.17 one card against itself, 0.26 four
+#    cards against one with a wave per card); a backstop only;
+RESTART_H_REL_BOUND = 0.5
+#  - the chosen solution is the same restart, its decoded copy number
+#    agrees on 99% of segments (100% in every reading: one card against
+#    itself, four against one, each cohort sample), and its h within
+#    1e-1 relative (read 3.6e-2 one card against itself).
 MESH_H_REL_BOUND = 1e-1
 MESH_CN_AGREEMENT_BOUND = 0.99
 # blocked vs chain-batched sweep: the transfer-matrix fold reassociates a
@@ -397,51 +407,99 @@ def recording_fits():
         pipeline._extract_results = extract
 
 
-def compare_chosen(label, fits, reference, config, posteriors=None):
-    """A fitted grid against its one-card reference, by the chosen
-    solution; returns the failures."""
+def compare_chosen(label, fits, reference, config):
+    """A fitted grid against its one-card reference: the chosen solution,
+    and every restart's h; returns the failures."""
     best, fit = chosen_solution(fits, config)
     best_ref, fit_ref = chosen_solution(reference, config)
     h_rel = float(np.max(np.abs(fit['h'] - fit_ref['h']) / fit_ref['h']))
     agree = float(np.mean(np.all(fit['cn'] == fit_ref['cn'], axis=(1, 2))))
-    per_restart = [float(np.max(np.abs(fits[i]['h'] - reference[i]['h'])
-                                / reference[i]['h'])) for i in reference]
-    posterior = ''
-    if posteriors is not None:
-        posterior = ', chosen posterior max abs diff {:.3e}'.format(
-            float(np.max(np.abs(posteriors[0][best] - posteriors[1][best]))))
+    per_restart = {i: float(np.max(np.abs(fits[i]['h'] - reference[i]['h'])
+                                   / reference[i]['h'])) for i in reference}
+    restart_agree = [float(np.mean(np.all(
+        fits[i]['cn'] == reference[i]['cn'], axis=(1, 2))))
+        for i in reference]
     log('{}: chosen restart {} / {}, h max rel diff {:.3e} (bound {:.0e}), '
-        'segments with equal decoded cn {:.6f} (bound {}){}; all {} '
-        'restarts: h rel diff median {:.3e} max {:.3e}'.format(
+        'segments with equal decoded cn {:.6f} (bound {}); all {} '
+        'restarts: h rel diff median {:.3e} max {:.3e} (bound {}), '
+        'segments with equal decoded cn min {:.6f}'.format(
             label, best, best_ref, h_rel, MESH_H_REL_BOUND, agree,
-            MESH_CN_AGREEMENT_BOUND, posterior, len(per_restart),
-            float(np.median(per_restart)), max(per_restart)))
-    if best == best_ref and h_rel <= MESH_H_REL_BOUND \
-            and agree >= MESH_CN_AGREEMENT_BOUND:
-        return []
-    return ['{}: chosen solution differs from one card'.format(label)]
+            MESH_CN_AGREEMENT_BOUND, len(per_restart),
+            float(np.median(list(per_restart.values()))),
+            max(per_restart.values()), RESTART_H_REL_BOUND,
+            min(restart_agree)))
+    failures = []
+    if not (best == best_ref and h_rel <= MESH_H_REL_BOUND
+            and agree >= MESH_CN_AGREEMENT_BOUND):
+        failures.append('{}: chosen solution differs from one card'.format(
+            label))
+    far = [i for i, d in per_restart.items() if not d <= RESTART_H_REL_BOUND]
+    if far:
+        failures.append('{}: h of restarts {} differs from one card'.format(
+            label, far))
+    return failures
+
+
+def compare_first_block(label, posteriors, reference):
+    """Per restart, the posteriors of the first sweep block against the
+    one-card ones; returns the failures."""
+    max_bound, mean_bound, argmax_bound = FIRST_BLOCK_BOUNDS
+    rows = {}
+    for i, ref in reference.items():
+        diff = np.abs(posteriors[i].astype(np.float64) - ref)
+        rows[i] = (float(diff.max()), float(diff.mean()),
+                   float(np.mean(posteriors[i].argmax(-1) != ref.argmax(-1))))
+    worst = [max(row[k] for row in rows.values()) for k in range(3)]
+    log('{}, first sweep block, worst of {} restarts: posterior max abs diff '
+        '{:.3e} (bound {:.0e}), mean abs diff {:.3e} (bound {:.0e}), argmax '
+        'disagreement {:.3e} (bound {:.0e})'.format(
+            label, len(rows), worst[0], max_bound, worst[1], mean_bound,
+            worst[2], argmax_bound))
+    far = [i for i, (mx, mean, arg) in rows.items()
+           if not (mx <= max_bound and mean <= mean_bound
+                   and arg <= argmax_bound)]
+    if far:
+        return ['{}: first-block posteriors of restarts {} differ from one '
+                'card'.format(label, far)]
+    return []
+
+
+def grid_fits(sample, grid, config, mesh):
+    """The grid through the batched driver on one card (``mesh`` None) or
+    on a restart mesh: fits, each restart's final posteriors, seconds."""
+    t0 = time.perf_counter()
+    with recording_fits() as records:
+        fits = pipeline._fit_many_batched(sample, grid, config, mesh=mesh)
+    seconds = time.perf_counter() - t0
+    check_fit(fits, grid)
+    posteriors = {i: records[(id(sample), id(grid[i]))][1] for i in grid}
+    return fits, posteriors, seconds
 
 
 def four_card_grid(sample, grid, config, devices):
-    """The R=24 grid on a 4-device restart mesh vs one card."""
-    fits, posteriors = {}, {}
-    for label, mesh in (
-            ('one card', None),
-            ('four cards', distributed.make_training_mesh(
-                devices=devices, num_restarts=len(grid)))):
-        t0 = time.perf_counter()
-        with recording_fits() as records:
-            fits[label] = pipeline._fit_many_batched(
-                sample, grid, config, mesh=mesh)
-        log('grid R={} on {}: {:.3f} s{}'.format(
-            len(grid), label, time.perf_counter() - t0,
-            '' if mesh is None else ' (mesh {})'.format(dict(mesh.shape))))
-        check_fit(fits[label], grid)
-        posteriors[label] = {i: records[(id(sample), id(grid[i]))][1]
-                             for i in grid}
-    return compare_chosen(
-        'grid four cards vs one', fits['four cards'], fits['one card'],
-        config, (posteriors['four cards'], posteriors['one card']))
+    """The R=24 grid on a 4-device restart mesh vs one card: one EM
+    iteration (the first sweep block's posteriors, per restart), then the
+    full fit (the chosen solution, and every restart's h). The full fits
+    reuse the programs the first compiled, so their times are warm."""
+    mesh = distributed.make_training_mesh(devices=devices,
+                                          num_restarts=len(grid))
+    num_em_iter = remixt_jax.config.get_param(config, 'num_em_iter')
+    runs = {}
+    for em_iter in sorted({1, num_em_iter}):
+        cfg = dict(config, num_em_iter=em_iter)
+        for label, mesh_ in (('one card', None), ('four cards', mesh)):
+            runs[em_iter, label] = grid_fits(sample, grid, cfg, mesh_)
+            log('grid R={} with {} EM on {}: {:.3f} s{}'.format(
+                len(grid), em_iter, label, runs[em_iter, label][2],
+                '' if mesh_ is None else ' (mesh {})'.format(
+                    dict(mesh_.shape))))
+    failures = compare_first_block(
+        'grid four cards vs one', runs[1, 'four cards'][1],
+        runs[1, 'one card'][1])
+    return failures + compare_chosen(
+        'grid four cards vs one, {} EM'.format(num_em_iter),
+        runs[num_em_iter, 'four cards'][0],
+        runs[num_em_iter, 'one card'][0], config)
 
 
 def cohort_samples(sample, data, config, wave, count):
@@ -541,10 +599,10 @@ def main(argv=None):
     if args.four_cards:
         devices = jax.devices()[:4]
         failures = four_card_grid(sample, grid, config, devices)
+        failures += four_card_blocked_chain(devices, args.seed)
         failures += four_card_cohort(
             cohort_samples(sample, data, config, wave, len(devices)),
             dict(config, num_em_iter=2), devices)
-        failures += four_card_blocked_chain(devices, args.seed)
         require(not failures, '; '.join(failures))
         device = dict(device, count=len(devices))
     else:

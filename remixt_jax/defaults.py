@@ -160,10 +160,10 @@ engine_dtype = 'float32'
 # than one restart at a time
 batch_restarts = True
 
-# Restarts advanced together on one device (the wave); bigger grids run as
-# sequential waves, one wave per device at a time on a restart-sharded
-# mesh. Not yet tuned on the GPU: device memory for the breakend bank
-# grows linearly in it.
+# Restarts advanced together (the wave); bigger grids run as sequential
+# waves, each split evenly over the devices of a restart-sharded mesh. Not
+# yet tuned on the GPU: device memory for the breakend bank grows linearly
+# in it.
 restart_chunk_size = 8
 
 # Shard the restart batch over all local devices when more than one is

@@ -1,1 +1,1 @@
-"""JAX/XLA/Pallas numerical kernels for the inference engine."""
+"""JAX/XLA numerical kernels for the inference engine."""

@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 
 
-def _mm_precision():
+def _mm_precision(environ=os.environ):
     """Matmul precision for the semiring scans and bank contractions.
 
     ``HIGHEST`` (the default) runs float32 dots in full float32: on an
@@ -27,9 +27,17 @@ def _mm_precision():
     checked-in accuracy number (ACCURACY.json,
     benchmark/ACCURACY_BENCH.json) was taken at ``HIGHEST``; a lower
     default needs the accuracy gates rerun on the card first. Override
-    with ``REMIXT_MM_PRECISION={default,high,highest}``.
+    with ``REMIXT_MM_PRECISION={default,high,highest}``; the variable's
+    name under the package's former name is refused rather than ignored.
     """
-    name = os.environ.get('REMIXT_MM_PRECISION', 'highest').lower()
+    stale = sorted(key for key in environ
+                   if key.startswith('REMIXT_')
+                   and key.endswith('_MM_PRECISION')
+                   and key != 'REMIXT_MM_PRECISION')
+    if stale:
+        raise RuntimeError('{} is no longer read; set REMIXT_MM_PRECISION '
+                           'instead'.format(stale[0]))
+    name = environ.get('REMIXT_MM_PRECISION', 'highest').lower()
     return {
         'default': jax.lax.Precision.DEFAULT,
         'high': jax.lax.Precision.HIGH,

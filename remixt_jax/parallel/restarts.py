@@ -51,12 +51,12 @@ def shard_restart_fn(mesh, fn, n_batched, n_replicated=0, axis='restart'):
     The first ``n_batched`` arguments are restart-stacked pytrees (sharded
     on their leading axis); the remaining ``n_replicated`` arguments are
     replicated. Every output is restart-stacked. Restarts are fully
-    independent fits, so the body needs no collectives and per-restart
-    results are bit-identical to single-device execution; shard_map (rather
-    than relying on the SPMD partitioner) keeps the per-device program
-    identical to the single-device one — including the Pallas kernels,
-    which have no partitioning rules — so the production chip path runs
-    unmodified on every device.
+    independent fits, so the body needs no collectives; shard_map (rather
+    than relying on the SPMD partitioner) runs the single-device program,
+    compiled for each device's share of the restarts, unmodified on every
+    device. The smaller batch extent rounds reductions in another order,
+    so per-restart results match single-device execution to rounding, not
+    bit for bit.
     """
     in_specs = tuple([P(axis)] * n_batched + [P()] * n_replicated)
     return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,

@@ -1,7 +1,6 @@
 """Cohort fit stage: multi-sample workflow through the scheduler.
 
-The production consumer of parallel/distributed.cohort_partition
-(VERDICT r4 item 7): a multi-tumour run fits every sample's restart grid
+The production consumer of parallel/distributed.cohort_partition: a multi-tumour run fits every sample's restart grid
 through ONE cohort task, samples distributed over disjoint device groups
 (analysis/pipeline.fit_many_cohort). Reference analog: per-``tumour_id``
 fit-workflow fan-out (/root/reference/remixt/workflow.py:384-391).

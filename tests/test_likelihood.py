@@ -150,3 +150,22 @@ def test_lgamma_shift_f32_accuracy():
         bound = 1e-3 + 4e-7 * np.abs(exact)
         err = np.abs(got - exact)
         assert np.all(err < bound), (a, float(err.max()))
+
+
+@pytest.mark.parametrize('environ,expected', [
+    ({}, 'HIGHEST'),
+    ({'REMIXT_MM_PRECISION': 'high'}, 'HIGH'),
+    ({'REMIXT_MM_PRECISION': 'Default'}, 'DEFAULT'),
+    # a precision override under a former package prefix is refused, not
+    # silently ignored
+    ({'REMIXT_OLD_MM_PRECISION': 'default'}, None),
+])
+def test_mm_precision_override(environ, expected):
+    import jax
+    from remixt_jax.ops.special import _mm_precision
+
+    if expected is None:
+        with pytest.raises(RuntimeError, match='REMIXT_MM_PRECISION'):
+            _mm_precision(environ)
+    else:
+        assert _mm_precision(environ) == getattr(jax.lax.Precision, expected)
